@@ -1,18 +1,15 @@
 #!/usr/bin/env python3
-"""Driver benchmark. The PRIMARY line (printed first, for round-over-round
-continuity) is the 10k-body direct-sum leapfrog rollout throughput on TPU.
-That kernel has been rsqrt-bound since round 1 (~1316x baseline), so
-secondary FRONTIER lines follow — one JSON line each, same schema, each
-against its own reference-derived baseline — covering what later rounds
-actually improved: the Barnes-Hut engine at 200k, the bh3 Verlet-list
-engine at 1M (round 4's headline classical result), the GNN surrogate
-rollout at 100k, and the fused-Pallas ContConv surrogate at 100k. Every
-frontier line is best-effort (guarded): a failure there never corrupts
-the primary metric.
+"""Driver benchmark. The PRIMARY line (printed first) is the 10k-body
+direct-sum leapfrog rollout throughput. Secondary FRONTIER lines follow —
+one JSON line each, same schema, each against its own reference-derived
+baseline: the Barnes-Hut engine at 200k, the bh3 Verlet-list engine at 1M,
+the GNN surrogate rollout at 100k, and the ContConv surrogate at 100k.
+Every frontier line is best-effort (guarded): a failure there never
+corrupts the primary metric.
 
 Primary baseline: the reference (CPU, single device) measures ~2.9 ms/step
-at 500 bodies (BASELINE.md, figures/stepwise_time.png). Direct summation
-scales O(N^2), so its derived 10k-body throughput is
+at 500 bodies (BASELINE.md). Direct summation scales O(N^2), so its derived
+10k-body throughput is
     500 / 2.9e-3 / (10000/500) ~= 8.62e3 particle-steps/sec.
 Frontier baselines (derivations in ``_frontier``):
   - BH @200k vs the O(N^2)-scaled CPU direct sum at 200k;
@@ -23,12 +20,7 @@ Frontier baselines (derivations in ``_frontier``):
 COMPARISON BASIS (what each line's vs_baseline means): every line divides
 by the REFERENCE'S OWN engine for that workload — direct-vs-direct,
 BH-vs-direct (the reference has no treecode; its only classical engine is
-the O(N^2) direct sum), GNN-vs-its-GNN, ContConv-vs-its-ContConv. The
-surrogate margins (~25x GNN) are smaller than the classical ones (~10^3x)
-because kNN+EdgeConv at 100k costs ~4x the classical bh2 step — the
-surrogate's economics vs the *in-repo* classical engines live in
-results/large_scale/crossover*.json (surrogate 3.4x direct at 100k),
-not in this file's reference-relative numbers.
+the O(N^2) direct sum), GNN-vs-its-GNN, ContConv-vs-its-ContConv.
 """
 
 import json
@@ -52,10 +44,9 @@ def _emit(metric, psteps, baseline):
 
 
 def main():
-    from nbody_tpu.core.simulate import SimulationConfig, simulate
-    from nbody_tpu.ics import generate_spiral
-    from nbody_tpu.utils.compile_cache import enable_persistent_cache
-    from nbody_tpu.utils.timing import fetch_scalar as _sync
+    from nbody_sim.core.simulate import SimulationConfig, simulate
+    from nbody_sim.ics import generate_spiral
+    from nbody_sim.utils.compile_cache import enable_persistent_cache
 
     enable_persistent_cache()
 
@@ -70,12 +61,12 @@ def main():
         force_backend="auto",
     )
 
-    # compile + warm (first compile of the scanned Pallas rollout is slow)
-    _sync(simulate(pos, vel, mass, STEPS, cfg).positions)
+    # compile + warm
+    jax.block_until_ready(simulate(pos, vel, mass, STEPS, cfg).positions)
 
     t0 = time.perf_counter()
     traj = simulate(pos, vel, mass, STEPS, cfg)
-    _sync(traj.positions)
+    jax.block_until_ready(traj.positions)
     elapsed = time.perf_counter() - t0
 
     psteps = N_BODIES * STEPS / elapsed
@@ -94,23 +85,20 @@ def main():
 def _frontier():
     import jax.numpy as jnp
 
-    from nbody_tpu.core.simulate import SimulationConfig, simulate
-    from nbody_tpu.ics import generate_spiral
-    from nbody_tpu.utils.timing import fetch_scalar as _sync
+    from nbody_sim.core.simulate import SimulationConfig, simulate
+    from nbody_sim.ics import generate_spiral
 
     def timed(fn, out):
-        _sync(out(fn()))  # warm
+        jax.block_until_ready(out(fn()))  # warm
         t0 = time.perf_counter()
         r = fn()
-        _sync(out(r))
+        jax.block_until_ready(out(r))
         return time.perf_counter() - t0
 
     def bh_200k():
         n, steps = 200_000, 50
         pos, vel, mass = generate_spiral(jax.random.PRNGKey(0), n)
-        # bh2 (two-level far field, B=128 near recipe) overtook the
-        # one-level engine at 200k in round 3: 13.0 vs 18.4 ms/step at the
-        # same near-set accuracy tier (see ROUND3_NOTES.md)
+        # bh2: two-level far field, B=128 near recipe
         cfg = SimulationConfig(g_const=4.5e-6, softening=0.05, dt=1e-4,
                                calc_energy=False, force_backend="bh2",
                                bh_block=128, bh_coarse=16, bh_rc=48,
@@ -124,10 +112,7 @@ def _frontier():
     def bh3_1m():
         n, steps = 1_000_000, 50
         pos, vel, mass = generate_spiral(jax.random.PRNGKey(0), n)
-        # bh3 (Verlet sub-refined near pass) at the 1M at-tier recipe —
-        # strictly better error than bh2's 86.3 ms recipe at 71.6 ms
-        # reused force eval (ROUND4_NOTES.md sweep table); rollout
-        # artifact: results/large_scale/bh_rollout_1m_bh3.json
+        # bh3 (Verlet sub-refined near pass) at the 1M recipe
         cfg = SimulationConfig(g_const=4.5e-6, softening=0.05, dt=1e-4,
                                calc_energy=False, force_backend="bh3",
                                bh_near=48, bh_block=128, bh_coarse=16,
@@ -140,15 +125,14 @@ def _frontier():
 
     def gnn_100k():
         n, steps = 100_000, 20
-        from nbody_tpu.models import GraphModel
-        from nbody_tpu.train.graphs import build_graph
-        from nbody_tpu.train.rollout import autoregressive_rollout
+        from nbody_sim.models import GraphModel
+        from nbody_sim.train.graphs import build_graph
+        from nbody_sim.train.rollout import autoregressive_rollout
 
         pos, vel, mass = generate_spiral(jax.random.PRNGKey(0), n)
         model = GraphModel(input_dim=4, gnn_dim=64, message_passing_steps=2,
                           aggr="mean", neighbors=10, scale_factor=1e6,
-                          knn_method="morton", knn_impl="pallas",
-                          fused_edgeconv=True)
+                          knn_method="morton", fused_edgeconv=True)
         x = jnp.concatenate([pos, vel, mass[:, None]], -1)[None]
         idx, valid = build_graph(model.graph_spec, x[..., :3])
         variables = jax.jit(model.init)(jax.random.PRNGKey(1), x, idx, valid)
@@ -157,7 +141,7 @@ def _frontier():
                                            steps + 1, 1e-4, graph_refresh=8),
             lambda r: r[0])
         # reference GNN surrogate: 2.84 ms/step at 500 bodies (CPU,
-        # results/gnn/test_results_stepwise.csv), O(N k) => linear in N
+        # BASELINE.md), O(N k) => linear in N
         _emit(f"GNN surrogate rollout throughput ({n} bodies, {steps} steps; vs reference GNN, linear-N-scaled)",
               n * steps / el, 500 / 2.84e-3)
 
@@ -166,9 +150,9 @@ def _frontier():
         # dominate (the rollout pays (steps//refresh + 1) extra builds
         # and one extra forward relative to `steps` counted steps)
         n, steps = 100_000, 40
-        from nbody_tpu.models import ContinuousConvModel
-        from nbody_tpu.train.graphs import build_graph
-        from nbody_tpu.train.rollout import autoregressive_rollout
+        from nbody_sim.models import ContinuousConvModel
+        from nbody_sim.train.graphs import build_graph
+        from nbody_sim.train.rollout import autoregressive_rollout
 
         pos, vel, mass = generate_spiral(jax.random.PRNGKey(0), n)
         model = ContinuousConvModel(
@@ -176,8 +160,7 @@ def _frontier():
             radius=1.0, agg="mean", self_loops=True,
             continuous_conv_layers=2, continuous_conv_dim=128,
             encoder_hiddens=(32, 64), decoder_hiddens=(64, 32),
-            scale_factor=1e6, radius_method="morton", radius_impl="pallas",
-            conv_impl="pallas")
+            scale_factor=1e6, radius_method="morton")
         x = jnp.concatenate([pos, vel, mass[:, None]], -1)[None]
         idx, valid = build_graph(model.graph_spec, x[..., :3])
         variables = jax.jit(model.init)(jax.random.PRNGKey(1), x, idx, valid)
@@ -186,7 +169,7 @@ def _frontier():
                                            steps + 1, 1e-4, graph_refresh=8),
             lambda r: r[0])
         # reference ContConv surrogate: 2.22 s/step at 500 bodies (CPU,
-        # results/contconv/test_results_stepwise.csv), O(N k) => linear in N
+        # BASELINE.md), O(N k) => linear in N
         _emit(f"ContConv surrogate rollout throughput ({n} bodies, {steps} steps; vs reference ContConv, linear-N-scaled)",
               n * steps / el, 500 / 2.22)
 

@@ -6,7 +6,7 @@
 // arrays in one pass, with a fixed-size stack buffer per row and a large
 // stdio buffer.
 //
-// C ABI (used from Python via ctypes, see nbody_tpu/data/io_native.py):
+// C ABI (used from Python via ctypes, see nbody_sim/data/io_native.py):
 //   nbody_write_csv(path, header,
 //                   int_cols,   n_int,    // int64 columns, column-major
 //                   str_idx, str_names, n_names,  // one string column (scene_type)

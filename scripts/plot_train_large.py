@@ -1,4 +1,5 @@
-"""Regenerate figures/train_large_loss.png from the committed epoch-loss CSVs.
+"""Render figures/train_large_loss.png from the large-N training runs'
+epoch-loss CSVs (written by ``nbody_sim.experiments.train_large``).
 
 One curve per large-N training run (results/large_scale/train_*_epoch_loss.csv),
 log-y scaled-RMSE vs epoch, with the predict-zero baseline for reference.
@@ -54,7 +55,7 @@ def main():
     ax.set_xlabel("epoch")
     ax.set_ylabel("train scaled RMSE loss")
     ax.set_title("Large-N surrogate training on BH ground truth "
-                 "(spiral scenes, v5e-1)")
+                 "(spiral scenes)")
     ax.grid(True, which="both", alpha=0.15)
     for s in ("top", "right"):
         ax.spines[s].set_visible(False)

@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from nbody_tpu.core.forces import potential_energy
-from nbody_tpu.ops.knn import knn_neighbors
-from nbody_tpu.ops.radius import radius_neighbors
+from nbody_sim.core.forces import potential_energy
+from nbody_sim.ops.knn import knn_neighbors
+from nbody_sim.ops.radius import radius_neighbors
 
 
 def _pos(n, seed=0):

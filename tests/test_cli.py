@@ -7,8 +7,8 @@ import pytest
 import numpy as np
 import pandas as pd
 
-from nbody_tpu.cli.datagen import main as datagen_main
-from nbody_tpu.data.schema import CSV_FIELDS
+from nbody_sim.cli.datagen import main as datagen_main
+from nbody_sim.data.schema import CSV_FIELDS
 
 
 def test_datagen_cli_roundtrip(tmp_path):
@@ -35,7 +35,7 @@ def test_datagen_cli_roundtrip(tmp_path):
 
 
 def test_config_driven_runner(tmp_path):
-    from nbody_tpu.experiments.run import main as run_main
+    from nbody_sim.experiments.run import main as run_main
 
     run_main(
         [
@@ -66,7 +66,7 @@ def test_datagen_time_chunks_and_check(tmp_path):
     """--time-chunks records per-chunk honest wall times (per-step step_time
     column varies); --check runs the checkify guard without tripping on a
     healthy trajectory (SURVEY.md §5.1-5.2 aux wiring)."""
-    from nbody_tpu.cli.datagen import main as datagen_main
+    from nbody_sim.cli.datagen import main as datagen_main
 
     out = tmp_path / "chunked.csv"
     datagen_main([
@@ -87,7 +87,7 @@ def test_datagen_time_chunks_and_check(tmp_path):
 def test_throw_if_nonfinite_raises():
     from jax.experimental.checkify import JaxRuntimeError
 
-    from nbody_tpu.utils.debug import throw_if_nonfinite
+    from nbody_sim.utils.debug import throw_if_nonfinite
 
     throw_if_nonfinite({"a": np.ones(3)}, what="ok tree")  # no raise
     with pytest.raises(JaxRuntimeError):

@@ -2,8 +2,8 @@
 
 import json
 
-from nbody_tpu.config import ExperimentConfig
-from nbody_tpu.models import ContinuousConvModel, GraphModel
+from nbody_sim.config import ExperimentConfig
+from nbody_sim.models import ContinuousConvModel, GraphModel
 
 
 def test_roundtrip(tmp_path):
@@ -55,12 +55,12 @@ def test_build_model_and_scenarios():
 def test_committed_recipe_configs_round_trip(tmp_path):
     """The two committed recipe configs (configs/*.json) must round-trip
     through ExperimentConfig and build the exact driver models — config-runner
-    parity with run_experiments.sh (VERDICT round 1, item 8)."""
+    parity with run_experiments.sh."""
     import json
     import os
 
-    from nbody_tpu.config import ExperimentConfig
-    from nbody_tpu.models import ContinuousConvModel, GraphModel
+    from nbody_sim.config import ExperimentConfig
+    from nbody_sim.models import ContinuousConvModel, GraphModel
 
     base = os.path.join(os.path.dirname(__file__), "..", "configs")
 

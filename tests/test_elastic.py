@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu.data.generate import ScenarioConfig, generate_dataset
-from nbody_tpu.models import GraphModel
-from nbody_tpu.train import Trainer, TrainingFault, all_finite, elastic_train
-from nbody_tpu.train.checkpoint import CheckpointManager
+from nbody_sim.data.generate import ScenarioConfig, generate_dataset
+from nbody_sim.models import GraphModel
+from nbody_sim.train import Trainer, TrainingFault, all_finite, elastic_train
+from nbody_sim.train.checkpoint import CheckpointManager
 
 DT = 1e-4
 
@@ -179,7 +179,7 @@ def test_elastic_scratch_restart_resets_scheduler(tiny_data, tmp_path):
     """A fault before the first checkpoint re-seeds the run from scratch —
     including the PlateauScheduler's counters, which the faulted attempt
     mutated (regression: only state/epoch/rng were reset)."""
-    from nbody_tpu.train.optim import PlateauScheduler
+    from nbody_sim.train.optim import PlateauScheduler
 
     sched = PlateauScheduler(lr=0.01, factor=0.5, patience=0)
     trainer = Trainer(_model(), learning_rate=0.01, dt=DT, seed=0,

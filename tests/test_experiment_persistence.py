@@ -1,7 +1,6 @@
 """Crash-safe artifact persistence in the experiment drivers.
 
-The 1M-scale runs lean on two invariants (both broken once in round 4's
-review and fixed there):
+The 1M-scale runs lean on two invariants:
 
 * ``train_large``'s per-epoch loss CSV must keep pre-resume rows when a
   checkpointed run is relaunched — it exists precisely to preserve
@@ -25,7 +24,7 @@ def work(tmp_path):
 
 
 def test_train_large_epoch_csv_survives_resume(work):
-    from nbody_tpu.experiments import train_large
+    from nbody_sim.experiments import train_large
 
     out = os.path.join(work, "train_256.json")
     common = ["--model", "gnn", "--n-bodies", "256", "--train-scenes", "1",
@@ -47,9 +46,9 @@ def test_train_large_epoch_csv_survives_resume(work):
 
 
 def test_crossover_incremental_merge_without_only(work, monkeypatch):
-    from nbody_tpu.experiments import crossover
+    from nbody_sim.experiments import crossover
 
-    # the measurement legs hardcode TPU backends; stub them so the CPU run
+    # the measurement legs run at device scale; stub them so the CPU run
     # drives main()'s real row/merge/persistence logic only
     monkeypatch.setattr(
         crossover, "simulate", lambda pos, vel, mass, steps, cfg: pos)

@@ -6,12 +6,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu.core.forces import (
+from nbody_sim.core.forces import (
     pairwise_accelerations,
     potential_energy,
     kinetic_energy,
 )
-from nbody_tpu.ops.pairwise import pallas_accelerations
+from nbody_sim.ops.pairwise import pallas_accelerations
 
 G, EPS = 4.5e-6, 0.05
 
@@ -112,7 +112,7 @@ def test_pallas_mask_zeroes_padded_rows():
 
 
 def test_pallas_potential_energy_matches_dense():
-    from nbody_tpu.ops.pairwise import pallas_potential_energy
+    from nbody_sim.ops.pairwise import pallas_potential_energy
 
     pos, vel, mass = _random_system(200, seed=9)
     u_ref = float(potential_energy(pos, mass, G, EPS))
@@ -133,7 +133,7 @@ def test_chunked_potential_energy_matches_full():
     """Block-triangle decomposition (C diagonal + C(C-1)/2 cross launches)
     counts every unordered pair exactly once — the 10M-scale exact-audit
     path where one triangular launch exceeds the safe execution time."""
-    from nbody_tpu.ops.pairwise import (chunked_potential_energy,
+    from nbody_sim.ops.pairwise import (chunked_potential_energy,
                                         pallas_cross_potential,
                                         pallas_potential_energy)
 
@@ -156,8 +156,8 @@ def test_chunked_potential_energy_matches_full():
 
 def test_partial_acc_diag_delta_deprecated():
     """diag_delta is ignored by the force kernel — passing it must warn
-    (ADVICE r3: a dead argument whose name implies exclusion is a trap)."""
-    from nbody_tpu.ops.pairwise import pallas_partial_accelerations
+    (a dead argument whose name implies exclusion is a trap)."""
+    from nbody_sim.ops.pairwise import pallas_partial_accelerations
 
     pos, _, mass = _random_system(64)
     with pytest.warns(DeprecationWarning, match="diag_delta"):

@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu.ics import generate_disk, generate_spiral
-from nbody_tpu.ics.disk import enclosed_mass
-from nbody_tpu.ics.profiles import spherical_hernquist_distribution
+from nbody_sim.ics import generate_disk, generate_spiral
+from nbody_sim.ics.disk import enclosed_mass
+from nbody_sim.ics.profiles import spherical_hernquist_distribution
 
 G = 4.5e-6
 

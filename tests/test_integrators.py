@@ -4,9 +4,9 @@ of leapfrog on a 2-body circular orbit with closed-form solution)."""
 import jax.numpy as jnp
 import numpy as np
 
-from nbody_tpu.core.forces import pairwise_accelerations
-from nbody_tpu.core.integrators import leapfrog_step, euler_step
-from nbody_tpu.core.simulate import SimulationConfig, simulate
+from nbody_sim.core.forces import pairwise_accelerations
+from nbody_sim.core.integrators import leapfrog_step, euler_step
+from nbody_sim.core.simulate import SimulationConfig, simulate
 
 
 def circular_two_body(g=1.0, m=1.0, r=1.0):

@@ -1,4 +1,4 @@
-"""Masked BatchNorm + torch-init parity (VERDICT round-1 items 2 and 4).
+"""Masked BatchNorm + torch-init parity.
 
 The reference's ContConv encoder normalizes over exactly the real nodes
 (torch BatchNorm1d on PyG's unpadded node batch, ``contconv.py:135-141``);
@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu.models import ContinuousConvModel
-from nbody_tpu.models.mlp import Dense, MaskedBatchNorm
-from nbody_tpu.ops.radius import batched_radius_neighbors
+from nbody_sim.models import ContinuousConvModel
+from nbody_sim.models.mlp import Dense, MaskedBatchNorm
+from nbody_sim.ops.radius import batched_radius_neighbors
 
 
 def test_masked_bn_matches_torch_semantics():
@@ -76,8 +76,8 @@ def test_masked_bn_invariant_to_padding():
 def test_contconv_train_forward_invariant_to_batch_padding():
     """End-to-end: a contconv train-mode forward (BatchNorm active) gives
     identical valid-node predictions and batch_stats whether or not the batch
-    carries padded tail rows — the exact-tail-batch guarantee that replaces
-    round 1's wraparound duplication."""
+    carries padded tail rows — the exact-tail-batch guarantee (no
+    wraparound duplication of real rows)."""
     rng = np.random.default_rng(2)
     b, n = 3, 10
     x = rng.normal(size=(b, n, 7)).astype(np.float32) * 0.3
@@ -135,9 +135,9 @@ def test_trainer_exact_tail_and_mixed_batches(tmp_path, mixed):
     """Train 2 epochs on a tiny two-size dataset with a batch size that forces
     a partial tail batch; loss must be finite and decrease-ish, and mixed mode
     must pool both sizes into one padded bucket."""
-    from nbody_tpu.cli.datagen import main as datagen_main
-    from nbody_tpu.models import GraphModel
-    from nbody_tpu.train.trainer import Trainer
+    from nbody_sim.cli.datagen import main as datagen_main
+    from nbody_sim.models import GraphModel
+    from nbody_sim.train.trainer import Trainer
 
     out = tmp_path / "train"
     out.mkdir()
@@ -162,10 +162,10 @@ def test_reference_mode_loss_matches_mixed_batch_oracle(tmp_path):
     """One 'reference'-mode step's loss == the mixed-batch RMSE over the
     union of its sub-batches, computed by an explicit oracle."""
     import jax.numpy as jnp
-    from nbody_tpu.models import GraphModel
-    from nbody_tpu.models.common import scaled_rmse_and_mse
-    from nbody_tpu.train.graphs import build_graph
-    from nbody_tpu.train.trainer import Trainer
+    from nbody_sim.models import GraphModel
+    from nbody_sim.models.common import scaled_rmse_and_mse
+    from nbody_sim.train.graphs import build_graph
+    from nbody_sim.train.trainer import Trainer
 
     rng = np.random.default_rng(5)
     model = GraphModel(input_dim=4, gnn_dim=8, message_passing_steps=1,

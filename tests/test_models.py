@@ -6,12 +6,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu.models import GraphModel, ContinuousConvModel
-from nbody_tpu.models.common import scaled_rmse_and_mse
-from nbody_tpu.models.contconv import ball_to_cube, ContinuousConv
-from nbody_tpu.ops.knn import batched_knn_neighbors
-from nbody_tpu.ops.radius import batched_radius_neighbors
-from nbody_tpu.ops.interpolate import trilinear_interpolate
+from nbody_sim.models import GraphModel, ContinuousConvModel
+from nbody_sim.models.common import scaled_rmse_and_mse
+from nbody_sim.models.contconv import ball_to_cube, ContinuousConv
+from nbody_sim.ops.knn import batched_knn_neighbors
+from nbody_sim.ops.radius import batched_radius_neighbors
+from nbody_sim.ops.interpolate import trilinear_interpolate
 
 
 def _batch(b=2, n=20, seed=0):
@@ -136,67 +136,6 @@ def test_contconv_layer_matches_gather_oracle(agg):
             if agg == "mean" and cnt > 0:
                 acc /= cnt
             np.testing.assert_allclose(out[bb, i], acc, rtol=1e-3, atol=1e-5)
-
-
-@pytest.mark.parametrize("agg", ["mean", "sum"])
-@pytest.mark.parametrize("d,ci,co", [(4, 3, 5), (6, 8, 7), (3, 16, 16)])
-def test_contconv_fused_kernel_matches_xla(agg, d, ci, co):
-    """Fused Pallas collect kernel (ops/contconv_kernel.py, interpret mode)
-    == the XLA collect-then-matmul layer, incl. the multi-chunk path
-    (d=6 -> D^3=216 > one 64-cell chunk) and masked/radius-cut edges."""
-    b, n, k, radius = 2, 70, 6, 1.2  # n > tile forces multiple node tiles
-    rng = np.random.default_rng(11)
-    pos = jnp.asarray(rng.uniform(-1, 1, (b, n, 3)).astype(np.float32))
-    feat = jnp.asarray(rng.normal(size=(b, n, ci)).astype(np.float32))
-    idx, valid = batched_radius_neighbors(pos, radius, k_max=k,
-                                          include_self=True)
-
-    kw = dict(in_channels=ci, out_channels=co, filter_resolution=d,
-              radius=radius, agg=agg)
-    layer = ContinuousConv(**kw)
-    params = layer.init(jax.random.PRNGKey(7), pos, feat, idx, valid)
-    want = np.asarray(layer.apply(params, pos, feat, idx, valid))
-    fused = ContinuousConv(**kw, impl="pallas_interpret")
-    got = np.asarray(fused.apply(params, pos, feat, idx, valid))
-    np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-5)
-
-
-def test_contconv_node_chunked_matches_unchunked():
-    """node_chunks > 1 (the 1M-body memory switch: per-chunk gather + fused
-    kernel under a rematerialised lax.map) must be a pure memory layout
-    change — outputs AND gradients identical to the un-chunked kernel path
-    (same per-row math, different padding/batching)."""
-    b, n, k, radius, d, ci, co = 2, 70, 6, 1.2, 4, 8, 5
-    rng = np.random.default_rng(23)
-    pos = jnp.asarray(rng.uniform(-1, 1, (b, n, 3)).astype(np.float32))
-    feat = jnp.asarray(rng.normal(size=(b, n, ci)).astype(np.float32))
-    idx, valid = batched_radius_neighbors(pos, radius, k_max=k,
-                                          include_self=True)
-
-    kw = dict(in_channels=ci, out_channels=co, filter_resolution=d,
-              radius=radius, agg="mean", impl="pallas_interpret")
-    base = ContinuousConv(**kw)
-    params = base.init(jax.random.PRNGKey(3), pos, feat, idx, valid)
-    chunked = ContinuousConv(**kw, node_chunks=2)
-
-    want = np.asarray(base.apply(params, pos, feat, idx, valid))
-    got = np.asarray(chunked.apply(params, pos, feat, idx, valid))
-    np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-6)
-
-    # gradients through the chunked scan + remat: params AND features
-    def loss(layer):
-        def f(p, ft):
-            o = layer.apply(p, pos, ft, idx, valid)
-            return jnp.sum(o * o)
-        return f
-
-    gp_w, gf_w = jax.grad(loss(base), argnums=(0, 1))(params, feat)
-    gp_g, gf_g = jax.grad(loss(chunked), argnums=(0, 1))(params, feat)
-    np.testing.assert_allclose(
-        np.asarray(gp_g["params"]["filters"]),
-        np.asarray(gp_w["params"]["filters"]), rtol=2e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(gf_g), np.asarray(gf_w),
-                               rtol=2e-4, atol=1e-5)
 
 
 def test_contconv_model_forward():
@@ -349,82 +288,3 @@ def test_output_scale_semantics(cls):
     mz = cls(**kw, output_scale=1e6, zero_init_output=True)
     vz = mz.init(jax.random.PRNGKey(1), x, idx, valid)
     assert float(np.abs(np.asarray(mz.apply(vz, x, idx, valid))).max()) == 0.0
-
-
-@pytest.mark.parametrize("d,ci,co", [(4, 3, 5), (6, 8, 7)])
-def test_contconv_kernel_param_grads_match_xla(d, ci, co):
-    """The fused collect kernel's custom VJP: gradients w.r.t. the layer
-    PARAMETERS (filters + anything upstream through feat_j) match the XLA
-    layer exactly — geometry inputs get zero cotangents by design, which
-    cannot affect parameter grads (geometry is a function of positions,
-    not parameters)."""
-    b, n, k, radius = 2, 70, 6, 1.2
-    rng = np.random.default_rng(23)
-    pos = jnp.asarray(rng.uniform(-1, 1, (b, n, 3)).astype(np.float32))
-    feat = jnp.asarray(rng.normal(size=(b, n, ci)).astype(np.float32))
-    idx, valid = batched_radius_neighbors(pos, radius, k_max=k,
-                                          include_self=True)
-    cot = jnp.asarray(rng.normal(size=(b, n, co)).astype(np.float32))
-
-    kw = dict(in_channels=ci, out_channels=co, filter_resolution=d,
-              radius=radius, agg="mean")
-    ref = ContinuousConv(**kw)
-    fused = ContinuousConv(**kw, impl="pallas_interpret")
-    params = ref.init(jax.random.PRNGKey(7), pos, feat, idx, valid)
-
-    def loss(layer, p, f):
-        out = layer.apply(p, pos, f, idx, valid)
-        return jnp.sum(out * cot)
-
-    g_ref = jax.grad(lambda p, f: loss(ref, p, f), argnums=(0, 1))(
-        params, feat)
-    g_fused = jax.grad(lambda p, f: loss(fused, p, f), argnums=(0, 1))(
-        params, feat)
-    # filters grad
-    fr = jax.tree_util.tree_leaves(g_ref[0])
-    ff = jax.tree_util.tree_leaves(g_fused[0])
-    for a, b_ in zip(fr, ff):
-        np.testing.assert_allclose(np.asarray(b_), np.asarray(a),
-                                   rtol=2e-4, atol=1e-5)
-    # feat grad (stands in for every upstream parameter path)
-    np.testing.assert_allclose(np.asarray(g_fused[1]), np.asarray(g_ref[1]),
-                               rtol=2e-4, atol=1e-5)
-
-
-@pytest.mark.parametrize("d,agg", [(4, "mean"), (3, "sum")])
-def test_contconv_kernel_position_grads_match_xla(d, agg):
-    """The fused collect kernel's geometry VJP (VERDICT r3 #5): gradients
-    w.r.t. PARTICLE POSITIONS — flowing through the poly6 window, the
-    ball-to-cube map and the trilinear grid coords into the kernel's
-    gx/gy/gz/window cotangents — match the XLA layer. (They used to be
-    silent zeros; a differentiable-rollout user of conv_impl='pallas'
-    would have gotten wrong gradients with no error.)"""
-    b, n, k, ci, co, radius = 2, 70, 6, 5, 4, 1.2
-    rng = np.random.default_rng(29)
-    pos = jnp.asarray(rng.uniform(-1, 1, (b, n, 3)).astype(np.float32))
-    feat = jnp.asarray(rng.normal(size=(b, n, ci)).astype(np.float32))
-    idx, valid = batched_radius_neighbors(pos, radius, k_max=k,
-                                          include_self=True)
-    cot = jnp.asarray(rng.normal(size=(b, n, co)).astype(np.float32))
-
-    kw = dict(in_channels=ci, out_channels=co, filter_resolution=d,
-              radius=radius, agg=agg)
-    ref = ContinuousConv(**kw)
-    fused = ContinuousConv(**kw, impl="pallas_interpret")
-    params = ref.init(jax.random.PRNGKey(11), pos, feat, idx, valid)
-
-    def loss(layer, q):
-        # neighbor lists held fixed (they are piecewise constant in q);
-        # the differentiable geometry is the window + grid coords
-        out = layer.apply(params, q, feat, idx, valid)
-        return jnp.sum(out * cot)
-
-    g_ref = jax.grad(lambda q: loss(ref, q))(pos)
-    g_fused = jax.grad(lambda q: loss(fused, q))(pos)
-    # self-loop edges are r = 0: a plain-norm ball_to_cube would NaN both
-    # paths here and assert_allclose(equal_nan=True) would hide it
-    assert np.isfinite(np.asarray(g_ref)).all()
-    assert np.isfinite(np.asarray(g_fused)).all()
-    scale = float(jnp.max(jnp.abs(g_ref)))
-    np.testing.assert_allclose(np.asarray(g_fused), np.asarray(g_ref),
-                               rtol=2e-4, atol=1e-5 * scale)

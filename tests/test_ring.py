@@ -1,13 +1,13 @@
 """Multi-device ring all-pairs vs single-device dense, on the virtual
-8-device CPU mesh (SURVEY.md §4: sharding testable without TPU)."""
+8-device CPU mesh (SURVEY.md §4: sharding testable without accelerators)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nbody_tpu.core.forces import pairwise_accelerations, energies
-from nbody_tpu.core.simulate import SimulationConfig, simulate
-from nbody_tpu.parallel.ring import ring_accelerations, ring_energies, ring_simulate
+from nbody_sim.core.forces import pairwise_accelerations, energies
+from nbody_sim.core.simulate import SimulationConfig, simulate
+from nbody_sim.parallel.ring import ring_accelerations, ring_energies, ring_simulate
 
 G, EPS = 4.5e-6, 0.05
 
@@ -59,7 +59,8 @@ def test_ring_pallas_interpret_matches_dense(mesh8):
     on the CPU mesh."""
     pos, _, mass = _system(128, seed=5)
     ring_p = np.asarray(
-        ring_accelerations(pos, mass, G, EPS, mesh8, backend="pallas_interpret")
+        ring_accelerations(pos, mass, G, EPS, mesh8, backend="pallas",
+                          interpret=True)
     )
     dense = np.asarray(pairwise_accelerations(pos, mass, G, EPS))
     scale = np.abs(dense).max()

@@ -4,10 +4,11 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from nbody_tpu.ics import generate_spiral
-from nbody_tpu.ops.treeforce import bh_accelerations, build_bh_partition
-from nbody_tpu.parallel.bh import sharded_bh_accelerations
+from nbody_sim.ics import generate_spiral
+from nbody_sim.ops.treeforce import bh_accelerations, build_bh_partition
+from nbody_sim.parallel.bh import sharded_bh_accelerations
 
 G, EPS = 4.5e-6, 0.05
 
@@ -24,7 +25,7 @@ def test_sharded_bh_matches_single_device(mesh8):
 def test_sharded_bh_uneven_blocks(mesh8):
     """nb = 14 receiver blocks over 8 devices: the block-padding to 16 must
     not corrupt real rows. Padded far reductions (K=16 with two zero blocks
-    vs K=14) tile differently on the lanes, so equality here is to rounding
+    vs K=14) reduce in a different order, so equality here is to rounding
     (measured max 2.3e-10 on ~1e-7 forces), not bitwise."""
     pos, _, mass = generate_spiral(jax.random.PRNGKey(1), 1792)
     a1 = bh_accelerations(pos, mass, G, EPS, n_near=6, block=128,
@@ -49,7 +50,7 @@ def test_sharded_bh_reused_partition(mesh8):
 def test_sharded_bh_program_is_cached(mesh8):
     """Repeated calls must reuse the jitted shard_map program — rebuilding
     the closure per call retraces/recompiles every force evaluation."""
-    from nbody_tpu.parallel.bh import _sharded_fn
+    from nbody_sim.parallel.bh import _sharded_fn
 
     pos, _, mass = generate_spiral(jax.random.PRNGKey(3), 2048)
     _sharded_fn.cache_clear()
@@ -64,8 +65,8 @@ def test_bh_simulate_matches_single_device(mesh8):
     """The scanned multi-device BH rollout tracks simulate's single-device
     bh path (same partition-refresh schedule; rounding-level equality from
     the per-device chunk padding)."""
-    from nbody_tpu.core.simulate import SimulationConfig, simulate
-    from nbody_tpu.parallel.bh import bh_simulate
+    from nbody_sim.core.simulate import SimulationConfig, simulate
+    from nbody_sim.parallel.bh import bh_simulate
 
     pos, vel, mass = generate_spiral(jax.random.PRNGKey(5), 2048)
     cfg = SimulationConfig(g_const=G, softening=EPS, dt=1e-4,
@@ -85,8 +86,8 @@ def test_sharded_bh2_matches_single_device(mesh8):
     """Two-level engine: coarse receiver groups sharded over 8 devices ==
     the single-device bh2 path. nbc = 16 groups / 8 devices: no padding,
     identical per-range arithmetic => exact equality."""
-    from nbody_tpu.ops.treeforce import bh2_accelerations
-    from nbody_tpu.parallel.bh import sharded_bh2_accelerations
+    from nbody_sim.ops.treeforce import bh2_accelerations
+    from nbody_sim.parallel.bh import sharded_bh2_accelerations
 
     pos, _, mass = generate_spiral(jax.random.PRNGKey(7), 2048)
     kw = dict(n_near=6, block=64, coarse=4, rc=4, near_impl="xla")
@@ -99,8 +100,8 @@ def test_sharded_bh2_uneven_groups(mesh8):
     """nbc = 14 coarse groups over 8 devices: whole-group padding to 16
     must not corrupt real rows (padded groups are massless; far reductions
     tile differently => rounding-level equality, like the bh1 twin)."""
-    from nbody_tpu.ops.treeforce import bh2_accelerations
-    from nbody_tpu.parallel.bh import sharded_bh2_accelerations
+    from nbody_sim.ops.treeforce import bh2_accelerations
+    from nbody_sim.parallel.bh import sharded_bh2_accelerations
 
     pos, _, mass = generate_spiral(jax.random.PRNGKey(8), 1792)
     kw = dict(n_near=6, block=64, coarse=4, rc=4, near_impl="xla")
@@ -111,8 +112,8 @@ def test_sharded_bh2_uneven_groups(mesh8):
 
 
 def test_sharded_bh2_reused_partition(mesh8):
-    from nbody_tpu.ops.treeforce import bh2_accelerations, build_bh2_partition
-    from nbody_tpu.parallel.bh import sharded_bh2_accelerations
+    from nbody_sim.ops.treeforce import bh2_accelerations, build_bh2_partition
+    from nbody_sim.parallel.bh import sharded_bh2_accelerations
 
     pos, _, mass = generate_spiral(jax.random.PRNGKey(9), 2048)
     part = build_bh2_partition(pos, mass, n_near=6, block=64, coarse=4, rc=4)
@@ -127,8 +128,8 @@ def test_bh2_simulate_matches_single_device(mesh8):
     """The scanned multi-device two-level rollout tracks simulate's
     single-device bh2 path (same refresh schedule; rounding-level equality
     from the per-device chunk padding, like the bh1 twin)."""
-    from nbody_tpu.core.simulate import SimulationConfig, simulate
-    from nbody_tpu.parallel.bh import bh2_simulate
+    from nbody_sim.core.simulate import SimulationConfig, simulate
+    from nbody_sim.parallel.bh import bh2_simulate
 
     pos, vel, mass = generate_spiral(jax.random.PRNGKey(10), 2048)
     cfg = SimulationConfig(g_const=G, softening=EPS, dt=1e-4,
@@ -148,8 +149,8 @@ def test_bh2_simulate_matches_single_device(mesh8):
 def test_sharded_bh3_matches_single_device(mesh8):
     """Sub-refined engine: coarse receiver groups sharded over 8 devices ==
     the single-device bh3 path (no group padding => exact equality)."""
-    from nbody_tpu.ops.treeforce import bh3_accelerations
-    from nbody_tpu.parallel.bh import sharded_bh3_accelerations
+    from nbody_sim.ops.treeforce import bh3_accelerations
+    from nbody_sim.parallel.bh import sharded_bh3_accelerations
 
     pos, _, mass = generate_spiral(jax.random.PRNGKey(11), 2048)
     kw = dict(n_near=6, block=64, coarse=4, rc=4, sub_block=16, n_sub=12,
@@ -162,8 +163,8 @@ def test_sharded_bh3_matches_single_device(mesh8):
 def test_sharded_bh3_reused_partition(mesh8):
     """With a prebuilt partition every selection knob derives from its
     shapes — caller values must neither matter nor recompile."""
-    from nbody_tpu.ops.treeforce import bh3_accelerations, build_bh3_partition
-    from nbody_tpu.parallel.bh import sharded_bh3_accelerations
+    from nbody_sim.ops.treeforce import bh3_accelerations, build_bh3_partition
+    from nbody_sim.parallel.bh import sharded_bh3_accelerations
 
     pos, _, mass = generate_spiral(jax.random.PRNGKey(12), 2048)
     part = build_bh3_partition(pos, mass, n_near=6, block=64, coarse=4,
@@ -178,8 +179,8 @@ def test_sharded_bh3_reused_partition(mesh8):
 def test_bh3_simulate_matches_single_device(mesh8):
     """The scanned multi-device sub-refined rollout tracks simulate's
     single-device bh3 path (same refresh schedule)."""
-    from nbody_tpu.core.simulate import SimulationConfig, simulate
-    from nbody_tpu.parallel.bh import bh3_simulate
+    from nbody_sim.core.simulate import SimulationConfig, simulate
+    from nbody_sim.parallel.bh import bh3_simulate
 
     pos, vel, mass = generate_spiral(jax.random.PRNGKey(13), 2048)
     cfg = SimulationConfig(g_const=G, softening=EPS, dt=1e-4,
@@ -195,3 +196,23 @@ def test_bh3_simulate_matches_single_device(mesh8):
                                rtol=1e-5, atol=1e-8)
     np.testing.assert_allclose(np.asarray(v), np.asarray(ref.velocities[-1]),
                                rtol=1e-5, atol=1e-8)
+
+
+@pytest.mark.parametrize("engine", ["bh2", "bh3"])
+def test_sharded_fresh_partition_unaligned_superblocks(mesh8, engine):
+    """N / block not a multiple of the coarse factor: the partition pads to
+    whole superblocks, so the gathered sorted result is longer than the
+    blocks N alone implies; the unsort must use the partition's slots."""
+    from nbody_sim.ops import treeforce
+    from nbody_sim.parallel import bh
+
+    pos, _, mass = generate_spiral(jax.random.PRNGKey(14), 64 * 18)
+    kw = dict(n_near=6, block=64, coarse=4, rc=4, near_impl="xla")
+    if engine == "bh3":
+        kw.update(sub_block=16, n_sub=12)
+    one = getattr(treeforce, f"{engine}_accelerations")(pos, mass, G, EPS,
+                                                         **kw)
+    sharded = getattr(bh, f"sharded_{engine}_accelerations")(
+        pos, mass, G, EPS, mesh8, **kw)
+    np.testing.assert_allclose(np.asarray(sharded), np.asarray(one),
+                               rtol=1e-5, atol=1e-9)

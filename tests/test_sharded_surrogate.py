@@ -1,16 +1,15 @@
 """Particle-sharded surrogate (``parallel/surrogate.py``) vs the
-single-device forward — exact equality on the virtual 8-CPU mesh (VERDICT
-round 1, item 3)."""
+single-device forward — exact equality on the virtual 8-CPU mesh."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu.models import GraphModel
-from nbody_tpu.parallel.surrogate import sharded_predict, sharded_rollout
-from nbody_tpu.train.graphs import build_graph
-from nbody_tpu.train.rollout import autoregressive_rollout, predict_accelerations
+from nbody_sim.models import GraphModel
+from nbody_sim.parallel.surrogate import sharded_predict, sharded_rollout
+from nbody_sim.train.graphs import build_graph
+from nbody_sim.train.rollout import autoregressive_rollout, predict_accelerations
 
 
 def _setup(model, n, seed=0):
@@ -78,8 +77,8 @@ def test_sharded_predict_with_output_hiddens(mesh8):
 
 
 def test_sharded_contconv_matches_single_device(mesh8):
-    from nbody_tpu.models import ContinuousConvModel
-    from nbody_tpu.parallel.surrogate import sharded_contconv_predict
+    from nbody_sim.models import ContinuousConvModel
+    from nbody_sim.parallel.surrogate import sharded_contconv_predict
 
     model = ContinuousConvModel(
         in_channels=4, filter_resolution=(4, 3), radius=1.5,
@@ -98,8 +97,8 @@ def test_sharded_contconv_matches_single_device(mesh8):
 
 
 def test_sharded_contconv_no_encoder(mesh8):
-    from nbody_tpu.models import ContinuousConvModel
-    from nbody_tpu.parallel.surrogate import sharded_contconv_predict
+    from nbody_sim.models import ContinuousConvModel
+    from nbody_sim.parallel.surrogate import sharded_contconv_predict
 
     model = ContinuousConvModel(
         in_channels=7, filter_resolution=4, radius=2.0,
@@ -121,7 +120,7 @@ def test_sharded_predict_morton_graph(mesh8):
     model = GraphModel(
         input_dim=4, gnn_dim=16, message_passing_steps=2, aggr="mean",
         neighbors=5, scale_factor=1e6,
-        knn_method="morton", knn_impl="pallas_interpret",
+        knn_method="morton",
     )
     n = 640  # large enough for the blocked (non-degenerate) morton path
     pos, vel, mass, variables = _setup(model, n, seed=5)
@@ -133,14 +132,14 @@ def test_sharded_predict_morton_graph(mesh8):
 
 
 def test_sharded_contconv_morton_graph(mesh8):
-    from nbody_tpu.models import ContinuousConvModel
-    from nbody_tpu.parallel.surrogate import sharded_contconv_predict
+    from nbody_sim.models import ContinuousConvModel
+    from nbody_sim.parallel.surrogate import sharded_contconv_predict
 
     model = ContinuousConvModel(
         in_channels=4, filter_resolution=(4,), radius=1.0,
         continuous_conv_layers=1, continuous_conv_dim=8,
         scale_factor=1e6, radius_kmax=6, self_loops=True,
-        radius_method="morton", radius_impl="pallas_interpret",
+        radius_method="morton",
     )
     pos, vel, mass, variables = _setup(model, 640, seed=6)
     want = predict_accelerations(model, variables, pos, vel, mass)
@@ -152,9 +151,9 @@ def test_sharded_contconv_morton_graph(mesh8):
 
 def test_sharded_loss_and_grad_matches_single_device(mesh8):
     """jax.grad THROUGH the particle-sharded forward == single-device
-    gradients (VERDICT r2 item 6): the all_gathers differentiate into
+    gradients: the all_gathers differentiate into
     collectives and the per-shard parameter contributions psum."""
-    from nbody_tpu.parallel.surrogate import sharded_loss_and_grad
+    from nbody_sim.parallel.surrogate import sharded_loss_and_grad
 
     model = GraphModel(
         input_dim=4, gnn_dim=16, message_passing_steps=2, aggr="mean",
@@ -188,7 +187,7 @@ def test_sharded_grad_descends(mesh8):
     the minimal particle-sharded training loop."""
     import optax
 
-    from nbody_tpu.parallel.surrogate import sharded_loss_and_grad
+    from nbody_sim.parallel.surrogate import sharded_loss_and_grad
 
     model = GraphModel(input_dim=4, gnn_dim=8, message_passing_steps=1,
                        aggr="mean", neighbors=4, scale_factor=1e6)
@@ -229,16 +228,12 @@ def _contconv_single_loss_and_grad(model, variables, pos, vel, mass, y):
     return loss, g, new_bs
 
 
-@pytest.mark.parametrize("conv_impl", [None, "pallas_interpret"])
-def test_sharded_contconv_loss_and_grad_matches_single_device(
-        mesh8, conv_impl):
-    """The ContConv twin of the sharded training step (VERDICT r3 #4):
-    loss, parameter grads AND the updated encoder BatchNorm running stats
-    must match the single-device train-mode step. The pallas_interpret
-    variant drives the fused collect kernel's custom VJP inside the
-    shard_map grad."""
-    from nbody_tpu.models import ContinuousConvModel
-    from nbody_tpu.parallel.surrogate import sharded_contconv_loss_and_grad
+def test_sharded_contconv_loss_and_grad_matches_single_device(mesh8):
+    """The ContConv twin of the sharded training step: loss, parameter
+    grads AND the updated encoder BatchNorm running stats must match the
+    single-device train-mode step."""
+    from nbody_sim.models import ContinuousConvModel
+    from nbody_sim.parallel.surrogate import sharded_contconv_loss_and_grad
 
     model = ContinuousConvModel(
         in_channels=4, filter_resolution=(4, 3), radius=1.5,
@@ -247,7 +242,6 @@ def test_sharded_contconv_loss_and_grad_matches_single_device(
         radius_kmax=6, self_loops=True,
         output_scale=1e3,  # non-default: the sharded grad must descend the
         # same (output-scaled) objective as the single-device trainer
-        conv_impl=conv_impl,
     )
     n = 64
     pos, vel, mass, variables = _setup(model, n, seed=10)
@@ -282,8 +276,8 @@ def test_sharded_contconv_grad_descends(mesh8):
     particle-sharded ContConv training loop."""
     import optax
 
-    from nbody_tpu.models import ContinuousConvModel
-    from nbody_tpu.parallel.surrogate import sharded_contconv_loss_and_grad
+    from nbody_sim.models import ContinuousConvModel
+    from nbody_sim.parallel.surrogate import sharded_contconv_loss_and_grad
 
     model = ContinuousConvModel(
         in_channels=4, filter_resolution=(4,), radius=1.5,
@@ -311,8 +305,8 @@ def test_sharded_contconv_grad_descends(mesh8):
 
 
 def test_sharded_contconv_rollout_matches_single_device(mesh8):
-    from nbody_tpu.models import ContinuousConvModel
-    from nbody_tpu.parallel.surrogate import sharded_contconv_rollout
+    from nbody_sim.models import ContinuousConvModel
+    from nbody_sim.parallel.surrogate import sharded_contconv_rollout
 
     model = ContinuousConvModel(
         in_channels=4, filter_resolution=(4, 3), radius=1.5,

@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu.ics import generate_disk, generate_spiral
-from nbody_tpu.ops.knn import knn_neighbors
-from nbody_tpu.ops.spatial import batched_knn_morton, knn_morton, morton_keys
+from nbody_sim.ics import generate_disk, generate_spiral
+from nbody_sim.ops.knn import knn_neighbors
+from nbody_sim.ops.spatial import batched_knn_morton, knn_morton, morton_keys
 
 
 def _recall(idx_a, valid_a, idx_b, valid_b):
@@ -68,7 +68,7 @@ def test_knn_morton_exact_when_window_covers_all():
 @pytest.mark.parametrize("maker", [generate_disk, generate_spiral])
 def test_knn_morton_recall_on_galaxy_profiles(maker):
     """>=0.99 recall at k=10 with defaults on clustered profiles — the
-    production large-N requirement (VERDICT round 1, item 1)."""
+    production large-N requirement."""
     pos, _, _ = maker(jax.random.PRNGKey(1), 4000)
     idx_e, valid_e = knn_neighbors(pos, 10)
     idx_m, valid_m = knn_morton(pos, 10)
@@ -128,63 +128,8 @@ def test_batched_knn_morton():
     np.testing.assert_array_equal(np.asarray(idx[0]), np.asarray(idx0))
 
 
-@pytest.mark.parametrize("maker", [generate_disk, generate_spiral])
-def test_knn_morton_pallas_recall(maker):
-    """The fused-Pallas select/merge path (interpret mode on CPU) must hit the
-    same >=0.99 production recall bar as the XLA path; its structural window
-    (== block per side) is wider than the XLA default, so recall can only
-    improve."""
-    pos, _, _ = maker(jax.random.PRNGKey(11), 3000)
-    idx_e, valid_e = knn_neighbors(pos, 10)
-    idx_p, valid_p = knn_morton(pos, 10, block=128, impl="pallas_interpret")
-    r = _recall(idx_p, valid_p, idx_e, valid_e)
-    assert r >= 0.99, f"pallas recall {r:.4f} < 0.99"
-
-
-def test_knn_morton_pallas_mask_self_dedup():
-    """Pallas path: masked rows never selected / have no neighbors;
-    include_self puts each node first; the cross-copy merge dedups."""
-    pos = jax.random.normal(jax.random.PRNGKey(12), (900, 3))
-    mask = jnp.arange(900) < 800
-    idx, valid = knn_morton(pos, 4, mask=mask, block=128,
-                            impl="pallas_interpret")
-    assert not np.any(np.asarray(idx[np.asarray(valid)]) >= 800)
-    assert not np.asarray(valid[800:]).any()
-
-    idx_s, valid_s = knn_morton(pos, 4, include_self=True, block=128,
-                                impl="pallas_interpret")
-    np.testing.assert_array_equal(np.asarray(idx_s[:, 0]), np.arange(900))
-    assert np.asarray(valid_s).all()
-
-    idx_d, valid_d = knn_morton(pos, 10, block=128, impl="pallas_interpret")
-    for i in range(0, 900, 37):
-        ids = np.asarray(idx_d[i][valid_d[i]])
-        assert len(ids) == len(set(ids.tolist()))
-
-
-def test_knn_morton_pallas_batched_and_spec():
-    """vmap over scenes + graph_spec/build_graph plumbing of impl."""
-    from nbody_tpu.models import GraphModel
-    from nbody_tpu.train.graphs import build_graph
-
-    pos = jax.random.normal(jax.random.PRNGKey(13), (2, 700, 3))
-    idx, valid = batched_knn_morton(pos, 5, block=128,
-                                    impl="pallas_interpret")
-    idx0, valid0 = knn_morton(pos[0], 5, block=128, impl="pallas_interpret")
-    np.testing.assert_array_equal(np.asarray(idx[0]), np.asarray(idx0))
-
-    m = GraphModel(neighbors=10, knn_method="morton", knn_impl="pallas")
-    kind, kw = m.graph_spec
-    assert kw["impl"] == "pallas"
-    idx_b, valid_b = build_graph(
-        ("knn", {"k": 5, "method": "morton", "block": 128,
-                 "impl": "pallas_interpret"}), pos
-    )
-    np.testing.assert_array_equal(np.asarray(idx_b), np.asarray(idx))
-
-
 def test_build_graph_morton_dispatch():
-    from nbody_tpu.train.graphs import build_graph
+    from nbody_sim.train.graphs import build_graph
 
     pos = jax.random.normal(jax.random.PRNGKey(6), (2, 40, 3))
     idx, valid = build_graph(
@@ -195,7 +140,7 @@ def test_build_graph_morton_dispatch():
 
 
 def test_graph_model_morton_spec():
-    from nbody_tpu.models import GraphModel
+    from nbody_sim.models import GraphModel
 
     m = GraphModel(neighbors=10, knn_method="morton", knn_window=48)
     kind, kw = m.graph_spec

@@ -8,7 +8,7 @@ import json
 
 import pytest
 
-from nbody_tpu.experiments.train_large import main as train_large_main
+from nbody_sim.experiments.train_large import main as train_large_main
 
 
 @pytest.mark.parametrize("model", ["gnn", "contconv"])

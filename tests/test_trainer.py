@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu.core.forces import pairwise_accelerations
-from nbody_tpu.core.simulate import SimulationConfig, simulate
-from nbody_tpu.data.generate import ScenarioConfig, generate_dataset
-from nbody_tpu.models import GraphModel
-from nbody_tpu.train import PlateauScheduler, Trainer
-from nbody_tpu.train.rollout import autoregressive_rollout
+from nbody_sim.core.forces import pairwise_accelerations
+from nbody_sim.core.simulate import SimulationConfig, simulate
+from nbody_sim.data.generate import ScenarioConfig, generate_dataset
+from nbody_sim.models import GraphModel
+from nbody_sim.train import PlateauScheduler, Trainer
+from nbody_sim.train.rollout import autoregressive_rollout
 
 G, EPS, DT = 4.5e-6, 0.05, 1e-4
 
@@ -191,7 +191,7 @@ def test_data_parallel_training(tiny_data, mesh8):
     """Trainer(mesh=...) shards batches over the "data" axis; loss curve
     stays finite and decreasing like the single-device run."""
     train_dir, _ = tiny_data
-    from nbody_tpu.parallel.mesh import DATA_AXIS, make_mesh
+    from nbody_sim.parallel.mesh import DATA_AXIS, make_mesh
 
     mesh = make_mesh(8, axis_names=(DATA_AXIS,))
     trainer = Trainer(_model(), learning_rate=0.01, dt=DT, seed=0, mesh=mesh)
@@ -206,7 +206,7 @@ def test_data_parallel_reference_batch_mode(tiny_data, mesh8):
     """batch_mode="reference" shards its per-bucket sub-batches over the dp
     axis (quotas padded to the axis size); loss parity with single-device."""
     train_dir, _ = tiny_data
-    from nbody_tpu.parallel.mesh import DATA_AXIS, make_mesh
+    from nbody_sim.parallel.mesh import DATA_AXIS, make_mesh
 
     single = Trainer(_model(), learning_rate=0.01, dt=DT, seed=0)
     l1, _ = single.train_from_dir(train_dir, epochs=3, batch_size=8,
@@ -240,7 +240,7 @@ def test_plateau_scheduler_cooldown_matches_torch():
 
 
 def test_predict_accelerations_matches_rollout_seed():
-    from nbody_tpu.train.rollout import predict_accelerations
+    from nbody_sim.train.rollout import predict_accelerations
 
     rng = np.random.default_rng(1)
     pos = jnp.asarray(rng.normal(size=(9, 3)).astype(np.float32))
@@ -258,9 +258,9 @@ def test_rollout_graph_refresh():
     import jax
     import jax.numpy as jnp
 
-    from nbody_tpu.models import GraphModel
-    from nbody_tpu.train.graphs import build_graph
-    from nbody_tpu.train.rollout import autoregressive_rollout
+    from nbody_sim.models import GraphModel
+    from nbody_sim.train.graphs import build_graph
+    from nbody_sim.train.rollout import autoregressive_rollout
 
     model = GraphModel(input_dim=4, gnn_dim=8, message_passing_steps=1,
                        aggr="mean", neighbors=4, scale_factor=1e6)
@@ -282,10 +282,10 @@ def test_rollout_graph_refresh():
 
 
 def test_resume_from_legacy_rngless_checkpoint(tiny_data, tmp_path):
-    """Checkpoints written before the RNG key joined _ckpt_tree (round 2)
+    """Checkpoints written before the RNG key joined _ckpt_tree
     restore with the in-memory key instead of crashing on the tree-structure
     mismatch."""
-    from nbody_tpu.train.checkpoint import CheckpointManager
+    from nbody_sim.train.checkpoint import CheckpointManager
 
     train_dir, _ = tiny_data
     save = str(tmp_path / "ckpt")
@@ -294,7 +294,7 @@ def test_resume_from_legacy_rngless_checkpoint(tiny_data, tmp_path):
     t1.train_from_dir(train_dir, epochs=2, batch_size=8, verbose=False)
 
     legacy = t1._ckpt_tree()
-    legacy.pop("rng")  # the round-2 tree shape
+    legacy.pop("rng")  # the older tree shape
     mgr = CheckpointManager(save)
     mgr.save(2, legacy)
     mgr.close()
@@ -307,8 +307,8 @@ def test_resume_from_legacy_rngless_checkpoint(tiny_data, tmp_path):
 
 def test_scan_chunk_is_bit_exact(tiny_data):
     """scan_chunk splits the whole-bucket training scan into capped
-    dispatches (the 1M-body tunneled-worker enabler) without changing the
-    math: same seeds => identical epoch losses and parameters."""
+    dispatches (bounding one execution's length at 1M bodies) without
+    changing the math: same seeds => identical epoch losses and parameters."""
     train_dir, _ = tiny_data
 
     t1 = Trainer(_model(), learning_rate=0.01, dt=DT, seed=0)

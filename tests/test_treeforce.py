@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu.core.forces import pairwise_accelerations
-from nbody_tpu.ics import generate_disk, generate_spiral
-from nbody_tpu.ops.treeforce import BHPartition, bh_accelerations, build_bh_partition
+from nbody_sim.core.forces import pairwise_accelerations
+from nbody_sim.ics import generate_disk, generate_spiral
+from nbody_sim.ops.treeforce import BHPartition, bh_accelerations, build_bh_partition
 
 G, EPS = 4.5e-6, 0.05
 
@@ -101,7 +101,7 @@ def test_simulate_bh_backend_tracks_exact():
     """A short leapfrog rollout under force_backend='bh' (with partition
     refresh) stays close to the exact dense rollout and keeps total energy
     drift at leapfrog levels (energies are computed exactly)."""
-    from nbody_tpu.core.simulate import SimulationConfig, simulate
+    from nbody_sim.core.simulate import SimulationConfig, simulate
 
     pos, vel, mass = generate_disk(jax.random.PRNGKey(6), 1500)
     base = dict(g_const=G, softening=EPS, dt=1e-4, integrator="leapfrog",
@@ -129,7 +129,7 @@ def test_bh_near_impl_pallas_matches_xla():
     a_x = bh_accelerations(pos, mass, G, EPS, partition=part, i_chunk=2,
                            near_impl="xla")
     a_p = bh_accelerations(pos, mass, G, EPS, partition=part, i_chunk=2,
-                           near_impl="pallas_interpret")
+                           near_impl="pallas", interpret=True)
     # the two paths differ by d^2 rounding only: the XLA path's norm
     # expansion carries ~1e-6 absolute cancellation error in d^2, the
     # kernel's direct differences do not — so compare at that level
@@ -142,9 +142,9 @@ def test_bh_finite_at_zero_softening():
     kernel — at softening 0 every backend must stay finite (the d2 floor
     must not let rsqrt^3 overflow float32)."""
     pos, _, mass = generate_spiral(jax.random.PRNGKey(8), 1000)
-    for impl in ("xla", "pallas_interpret"):
+    for impl in ("xla", "pallas"):
         a = bh_accelerations(pos, mass, G, 0.0, n_near=8, block=128,
-                             near_impl=impl)
+                             near_impl=impl, interpret=impl == "pallas")
         assert bool(jnp.isfinite(a).all()), impl
 
 
@@ -155,7 +155,7 @@ def test_bh2_close_to_exact_and_comparable_to_bh1():
     """Two-level error tiers stay in the same regime as the one-level
     engine at matched near budgets (the coarse residual is second-order)."""
     pos, _, mass = generate_spiral(jax.random.PRNGKey(10), 6000)
-    from nbody_tpu.ops.treeforce import bh2_accelerations
+    from nbody_sim.ops.treeforce import bh2_accelerations
 
     exact = pairwise_accelerations(pos, mass, G, EPS)
     a1 = bh_accelerations(pos, mass, G, EPS, n_near=16, block=128)
@@ -171,7 +171,7 @@ def test_bh2_full_refinement_telescopes_to_bh1():
     """rc = nbc refines every superblock: the coarse far field cancels and
     the result matches the one-level engine (up to f32 summation-order
     rounding through the near-multipole cancellation)."""
-    from nbody_tpu.ops.treeforce import bh2_accelerations
+    from nbody_sim.ops.treeforce import bh2_accelerations
 
     pos, _, mass = generate_spiral(jax.random.PRNGKey(11), 4096)
     nb = -(-4096 // 128)
@@ -185,7 +185,7 @@ def test_bh2_full_refinement_telescopes_to_bh1():
 
 
 def test_bh2_error_decreases_with_rc():
-    from nbody_tpu.ops.treeforce import bh2_accelerations
+    from nbody_sim.ops.treeforce import bh2_accelerations
 
     pos, _, mass = generate_spiral(jax.random.PRNGKey(12), 4096)
     exact = pairwise_accelerations(pos, mass, G, EPS)
@@ -200,7 +200,7 @@ def test_bh2_error_decreases_with_rc():
 def test_bh2_partition_consistency_and_reuse():
     """Near sets are restricted to refined parents (exact telescoping by
     construction); a stale partition stays usable."""
-    from nbody_tpu.ops.treeforce import bh2_accelerations, build_bh2_partition
+    from nbody_sim.ops.treeforce import bh2_accelerations, build_bh2_partition
 
     key = jax.random.PRNGKey(13)
     pos, vel, mass = generate_spiral(key, 4000)
@@ -229,7 +229,7 @@ def test_bh2_partition_consistency_and_reuse():
 def test_bh2_pallas_interpret_matches_xla():
     """The grouped Pallas multipole kernel (interpret) + Pallas near pass
     == the pure-XLA two-level path."""
-    from nbody_tpu.ops.treeforce import bh2_accelerations, build_bh2_partition
+    from nbody_sim.ops.treeforce import bh2_accelerations, build_bh2_partition
 
     pos, _, mass = generate_spiral(jax.random.PRNGKey(14), 2048)
     part = build_bh2_partition(pos, mass, n_near=8, block=128, coarse=4,
@@ -237,13 +237,13 @@ def test_bh2_pallas_interpret_matches_xla():
     a_x = bh2_accelerations(pos, mass, G, EPS, partition=part, i_chunk=2,
                             near_impl="xla")
     a_p = bh2_accelerations(pos, mass, G, EPS, partition=part, i_chunk=2,
-                            near_impl="pallas_interpret")
+                            near_impl="pallas", interpret=True)
     np.testing.assert_allclose(np.asarray(a_p), np.asarray(a_x),
                                rtol=2e-3, atol=5e-9)
 
 
 def test_bh2_jit_finite_and_zero_softening():
-    from nbody_tpu.ops.treeforce import bh2_accelerations
+    from nbody_sim.ops.treeforce import bh2_accelerations
 
     pos, _, mass = generate_spiral(jax.random.PRNGKey(15), 2048)
 
@@ -263,7 +263,7 @@ def test_simulate_bh2_backend_tracks_exact():
     """force_backend='bh2' (two-level, with partition refresh) stays close
     to the dense rollout at a config where the far field is genuinely
     approximate (near covers 8/48 blocks, refined 6/12 superblocks)."""
-    from nbody_tpu.core.simulate import SimulationConfig, simulate
+    from nbody_sim.core.simulate import SimulationConfig, simulate
 
     pos, vel, mass = generate_disk(jax.random.PRNGKey(16), 3000)
     base = dict(g_const=G, softening=EPS, dt=1e-4, integrator="leapfrog",
@@ -294,7 +294,7 @@ def test_bh3_full_selection_matches_bh2():
     selection sort visits candidates in priority order, not near-set
     order, and the exact-minus-multipole near field amplifies the
     reordering residue relative to the (partially cancelled) total."""
-    from nbody_tpu.ops.treeforce import bh2_accelerations, bh3_accelerations
+    from nbody_sim.ops.treeforce import bh2_accelerations, bh3_accelerations
 
     pos, _, mass = generate_spiral(jax.random.PRNGKey(20), 6000)
     a2 = bh2_accelerations(pos, mass, G, EPS, n_near=16, block=128,
@@ -308,7 +308,7 @@ def test_bh3_full_selection_matches_bh2():
 
 
 def test_bh3_error_decreases_with_n_sub():
-    from nbody_tpu.ops.treeforce import bh3_accelerations
+    from nbody_sim.ops.treeforce import bh3_accelerations
 
     pos, _, mass = generate_spiral(jax.random.PRNGKey(21), 6000)
     exact = pairwise_accelerations(pos, mass, G, EPS)
@@ -323,7 +323,7 @@ def test_bh3_error_decreases_with_n_sub():
 def test_bh3_close_to_exact_on_galaxies():
     """At a production-shaped selection (K*Bs = 768 exact pairs vs bh2's
     M*B = 2048) the error stays in the bh2 tier on both profiles."""
-    from nbody_tpu.ops.treeforce import bh2_accelerations, bh3_accelerations
+    from nbody_sim.ops.treeforce import bh2_accelerations, bh3_accelerations
 
     for gen, key in ((generate_spiral, 22), (generate_disk, 23)):
         pos, _, mass = gen(jax.random.PRNGKey(key), 8000)
@@ -342,7 +342,7 @@ def test_bh3_partition_invariants():
     """sub_near/sub_far partition the near sets' sub-blocks exactly; the
     receiver's own sub-blocks (and its +-1 curve-block window, when in the
     near set) are always selected exact."""
-    from nbody_tpu.ops.treeforce import build_bh3_partition
+    from nbody_sim.ops.treeforce import build_bh3_partition
 
     pos, _, mass = generate_spiral(jax.random.PRNGKey(24), 5000)
     part = build_bh3_partition(pos, mass, n_near=8, block=128, coarse=4,
@@ -364,7 +364,7 @@ def test_bh3_partition_invariants():
 
 
 def test_bh3_stale_partition_and_jit_grad():
-    from nbody_tpu.ops.treeforce import bh3_accelerations, build_bh3_partition
+    from nbody_sim.ops.treeforce import bh3_accelerations, build_bh3_partition
 
     key = jax.random.PRNGKey(25)
     pos, vel, mass = generate_spiral(key, 4000)
@@ -389,7 +389,7 @@ def test_bh3_stale_partition_and_jit_grad():
 
 
 def test_bh3_pallas_interpret_matches_xla():
-    from nbody_tpu.ops.treeforce import bh3_accelerations, build_bh3_partition
+    from nbody_sim.ops.treeforce import bh3_accelerations, build_bh3_partition
 
     pos, _, mass = generate_spiral(jax.random.PRNGKey(26), 2048)
     part = build_bh3_partition(pos, mass, n_near=8, block=128, coarse=4,
@@ -397,13 +397,13 @@ def test_bh3_pallas_interpret_matches_xla():
     a_x = bh3_accelerations(pos, mass, G, EPS, partition=part, i_chunk=2,
                             near_impl="xla")
     a_p = bh3_accelerations(pos, mass, G, EPS, partition=part, i_chunk=2,
-                            near_impl="pallas_interpret")
+                            near_impl="pallas", interpret=True)
     np.testing.assert_allclose(np.asarray(a_p), np.asarray(a_x),
                                rtol=2e-3, atol=2e-8)
 
 
 def test_bh3_finite_at_zero_softening():
-    from nbody_tpu.ops.treeforce import bh3_accelerations
+    from nbody_sim.ops.treeforce import bh3_accelerations
 
     pos, _, mass = generate_spiral(jax.random.PRNGKey(27), 2048)
     a0 = bh3_accelerations(pos, mass, G, 0.0, n_near=8, block=128,
@@ -412,7 +412,7 @@ def test_bh3_finite_at_zero_softening():
 
 
 def test_simulate_bh3_backend_tracks_exact():
-    from nbody_tpu.core.simulate import SimulationConfig, simulate
+    from nbody_sim.core.simulate import SimulationConfig, simulate
 
     pos, vel, mass = generate_disk(jax.random.PRNGKey(28), 3000)
     base = dict(g_const=G, softening=EPS, dt=1e-4, integrator="leapfrog",

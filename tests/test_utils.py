@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu.ics import compose, generate_disk
-from nbody_tpu.utils.debug import assert_finite_state, checked_accelerations
-from nbody_tpu.utils.timing import device_time, fetch_scalar
+from nbody_sim.ics import compose, generate_disk
+from nbody_sim.utils.debug import assert_finite_state, checked_accelerations
+from nbody_sim.utils.timing import device_time
 
 
 def test_device_time_returns_result_and_positive_time():
@@ -17,8 +17,11 @@ def test_device_time_returns_result_and_positive_time():
     assert secs > 0
 
 
-def test_fetch_scalar():
-    assert fetch_scalar(jnp.arange(5)) == 10.0
+def test_device_time_returns_every_leaf_ready():
+    out, secs = device_time(lambda: {"a": jnp.arange(5) * 2,
+                                     "b": (jnp.ones(3),)})
+    assert int(out["a"].sum()) == 20 and out["b"][0].shape == (3,)
+    assert secs >= 0
 
 
 def test_checked_accelerations_flags_nan():

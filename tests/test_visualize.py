@@ -9,7 +9,7 @@ import os
 import pandas as pd
 import pytest
 
-from nbody_tpu.experiments.visualize import _scene_n_bodies
+from nbody_sim.experiments.visualize import _scene_n_bodies
 
 
 def _write_test_csv(path, scenes):
